@@ -1,4 +1,4 @@
-"""1080p real-encoder benchmark on the TPU.
+"""1080p real-encoder benchmark on one NVIDIA GPU (exits without one).
 
 Measures the PRODUCTION encoder (`jm_tpu.encoder.Encoder`, device
 pipeline with device_rd): a full 1080p IPPP CAVLC encode producing a
@@ -6,7 +6,7 @@ decodable Annex-B stream — wavefront device I-frame, batched device P
 pipeline (full-search ME ±16 + quarter-pel SATD refinement over all
 partition jobs, md_high trial-encode RD mode decision with exact CAVLC
 bits (ops/enc_rd.py), MC, transform/quant/recon), in-loop deblocking
-(8x-unrolled wavefront scan) and the device CAVLC slice packer
+(wavefront scan) and the device CAVLC slice packer
 (ops/cavlc_jax.py) — on the happy path only the packed bitstream words
 cross the host boundary. The same code path is byte-exact against the
 classic per-frame encoder and decode-validated in tests/
@@ -24,8 +24,9 @@ Baseline: JM lencod 19.0 on this host, encoder_baseline.cfg at
 (.refbuild/run/bench1080.log, regenerated round 4 — the r2/r3 0.058
 anchor was from a stale unreproducible run and is retired).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} plus a
-device/host wall-time split.
+Prints the card's name and power limit (nvidia-smi), then ONE JSON
+line: {"metric", "value", "unit", "vs_baseline"} plus a device/host
+wall-time split.
 """
 
 from __future__ import annotations
@@ -61,9 +62,11 @@ def make_sequence():
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from jm_tpu import runtime
+    runtime.parallel_gpu_compile()
+    runtime.require_gpus(1, "bench.py")
+    print(f"card: {runtime.card_info()}", flush=True)
+    runtime.enable_compile_cache()
 
     from jm_tpu.encoder.encoder import Encoder, EncoderConfig
 

@@ -1,4 +1,4 @@
-"""jm_tpu — a TPU-native H.264/AVC encode/decode engine in JAX/XLA.
+"""jm_tpu — an accelerator-native H.264/AVC encode/decode engine in JAX/XLA.
 
 A from-scratch reimplementation of the capabilities of the JM 19.0 reference
 software (lencod/ldecod): Baseline/Main/High-profile encoding with
@@ -6,7 +6,7 @@ full-search and EPZS/HME fast motion estimation, quarter-pel interpolation,
 intra prediction, 4x4/8x8 integer transforms, normal/trellis (RDOQ)
 quantization with custom scaling matrices and adaptive rounding, CAVLC and
 CABAC entropy coding, in-loop deblocking, RD-optimized mode decision —
-redesigned TPU-first: the production P/I encode pipeline runs as batched
+redesigned for batched accelerator execution: the production P/I encode pipeline runs as batched
 jitted device stages (ops/enc_jax.py, ops/intra_jax.py), optionally
 MB-row-sharded over a device mesh with halo exchange
 (parallel/sp_pipeline.py); host Python handles bit-serial entropy coding

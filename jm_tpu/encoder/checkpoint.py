@@ -3,7 +3,7 @@
 The reference has no encoder state checkpointing — its format-level resume
 points are IDR pictures with SPS/PPS resend (lencod configfile.h:38
 ResendSPS) and `StartFrame` input offsets (configfile.h:39). This module
-adds the new-scope capability the TPU framework promises: a running encode
+adds a capability the reference lacks: a running encode
 job can be snapshotted at any closed-GOP boundary (the next coded picture
 is an IDR, so the DPB restarts empty and no reference pixels need saving)
 and resumed later — on the same or a different host — producing a stream

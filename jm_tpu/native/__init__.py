@@ -5,13 +5,15 @@ Exposes `available`, and when available: `BitReader`, `CabacEngine`,
 `cavlc_slice_data` (CAVLC MB-layer serializer) and `deblock_frame`
 (in-loop filter edge loops). All normative tables (CABAC state machine,
 CAVLC code tables) are installed from the Python tables so both
-implementations share one source of truth. Falls back silently
-(available=False) when no compiler is present.
+implementations share one source of truth. When the library can be
+neither loaded nor built, `available` is False and `load_error` holds the
+exception that stopped it (callers then take the Python paths).
 """
 
 from __future__ import annotations
 
 available = False
+load_error: Exception | None = None
 BitReader = None
 CabacEngine = None
 ebsp_to_rbsp = None
@@ -58,7 +60,7 @@ def _install_cavlc_tables(jm_native):
 
 def _load():
     global available, BitReader, CabacEngine, ebsp_to_rbsp, rbsp_to_ebsp
-    global cavlc_slice_data, deblock_frame, parse_slice_cavlc
+    global cavlc_slice_data, deblock_frame, parse_slice_cavlc, load_error
     try:
         try:
             from . import jm_native  # type: ignore
@@ -120,8 +122,9 @@ def _load():
 
         parse_slice_cavlc = _parse_slice_cavlc
         available = True
-    except Exception:
+    except Exception as e:      # no compiler, headers or loadable library
         available = False
+        load_error = e
 
 
 _load()

@@ -1,6 +1,6 @@
 """Device-side CAVLC slice-data packing (spec 9.2 + 7.3.5 write side).
 
-TPU-native redesign of the bit-serial CAVLC serializer (reference
+Batched device redesign of the bit-serial CAVLC serializer (reference
 lencod/src/vlc.c writeSyntaxElement_NumCoeffTrailingOnes:820,
 writeCoeff4x4_CAVLC level loop; lencod/src/macroblock.c
 write_p_slice_MB_layer:2298): every syntax element of every macroblock is
@@ -609,11 +609,8 @@ def assemble(piece_words, piece_lens, max_words: int, k_overlap: int = 8):
     total = ends[-1]
 
     # compact to non-empty pieces by SCATTER (one pass): slot j holds the
-    # j-th non-empty piece's start/end and its original index. The former
-    # searchsorted(cnz, j+1) inverse-cumsum was an 18-iteration binary
-    # search over all P pieces and, with the materialized compacted word
-    # copy, made assemble the single hottest pack op (~42 ms net at
-    # 1080p, tools/profile_pack.py assemble).
+    # j-th non-empty piece's start/end and its original index (instead
+    # of an 18-iteration searchsorted binary search over all P pieces).
     nz = piece_lens > 0
     cnz = jnp.cumsum(nz.astype(jnp.int32))
     big = jnp.int32(2 ** 30)

@@ -2,7 +2,7 @@
 ops/deblock.py (spec 8.7; capability parity with ldecod/src/
 loop_filter_normal.c and lencod/src/loopFilter.c).
 
-TPU restructuring: the reference itself proves the dependency analysis —
+Device restructuring: the reference itself proves the dependency analysis —
 its parallel build filters macroblocks along 2:1 diagonals
 (lencod/src/loopFilter.c:112 DeblockFrame, wave i holds MBs with
 col = i - 2*row). Here the frame is stored *sheared* so each wave is a
@@ -433,10 +433,12 @@ def deblock_jax(Y, U, V, bs_v, bs_h, qp, disable, a_off, b_off,
                     slice(5, 8), new_top_rowsV, topV, slice(5, 8), w)
         return (SY, SU, SV), None
 
-    # multi-wave scan steps: unroll UNROLL waves inside one step so the
-    # per-iteration scan/dispatch overhead amortizes (the dependency
-    # chain between consecutive waves is preserved by the inner order).
-    UNROLL = 8
+    # UNROLL waves per scan step (the dependency chain between
+    # consecutive waves is preserved by the inner order). More waves per
+    # step cut per-iteration loop overhead but multiply the program, and
+    # GPU compile time grows with it: at 8 this function lowers to ~37k
+    # ops instead of ~5k (PERF.md, PR 1)
+    UNROLL = 1
 
     def step_u(carry, w0):
         for k in range(UNROLL):

@@ -3,7 +3,7 @@ phase of the two-phase decode (SURVEY §7 P1, D11-D15; r2/r3 verdict item
 "put the decoder on the device").
 
 Reference shape: ldecod/src/macroblock.c decode_one_macroblock:1402 /
-mc_prediction.c get_block_luma:902 run per MB in decode order. TPU
+mc_prediction.c get_block_luma:902 run per MB in decode order. Device
 redesign: inter prediction has NO dependency on the current picture, so
 every inter 4x4 block of the whole picture is reconstructed in one
 batched program — a single fancy-index gather pulls every block's

@@ -146,10 +146,8 @@ def block_len_parts(scan, max_coeff: int):
 
     Implemented as ONE descending-position walk carrying (B,)-shaped
     state (rank, suffix-length, zeros-left, previous position) instead
-    of materializing per-rank level/position tensors: the rank
-    extraction (16 masked selects over (B, 16)) was the single hottest
-    op of the device RD stage at 1080p (~65 ms of the ~300 ms core,
-    tools/profile_rd2.py); this form reads one (B,) column per step."""
+    of materializing per-rank level/position tensors (16 masked selects
+    over (B, 16)); this form reads one (B,) column per step."""
     from .cavlc_jax import _RUN_LEN_D, _TZ_DC420_LEN_D, _TZ_LEN_D
     B, L = scan.shape
     c = scan.astype(jnp.int32)
@@ -541,7 +539,7 @@ def _p_mode_rd_pruned(band, cband, win, mv_q, int_mv, pred, orig_q,
     # extract all 16 qjob predictions first (49-way static select over
     # the refine windows), then gather the surviving (8, 8) blocks: a
     # take_along_axis on the (N, 16, 4, 10, 10) window tensor itself
-    # costs more than the halved select saves (large-slice TPU gathers)
+    # costs more than the halved select saves (large-slice gathers)
     blk_all = EJ.qjob_pred_blocks(win, mv_q, int_mv)      # (N, 16, 8, 8)
     blk_pred = jnp.take_along_axis(
         blk_all, flat_sel[:, :, None, None], axis=1) \

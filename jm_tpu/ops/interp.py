@@ -8,7 +8,7 @@ whole-frame planes [integer, half-horiz (b), half-vert (h), center (j)]
 computed once per stored reference picture. Any quarter-pel sample is then
 either a plane sample or the rounded average of two plane samples at unit
 offsets — turning per-block MC into pure gathers + one average, ideal for
-batching on TPU.
+batched device execution.
 
 Host numpy implementation (bit-exact oracle); jnp twins in interp_jax.
 """

@@ -5,7 +5,7 @@ reconstruction of its left/up/up-left/up-right neighbors) is broken by
 processing anti-diagonals d = mbx + 2*mby: every MB on a diagonal only
 depends on MBs of earlier diagonals, so each wave is one batched tensor
 step and the whole picture is ONE jitted lax.fori_loop over waves
-(SURVEY §1 "TPU framing" / §2.5 SP axis — the restructuring of lencod's
+(SURVEY §1 / §2.5 SP axis — the restructuring of lencod's
 serial slice.c:486 MB loop for the I-slice path).
 
 Per wave, for every MB in the wave simultaneously:
@@ -18,7 +18,7 @@ Per wave, for every MB in the wave simultaneously:
   - exact residual coding + reconstruction (shared quant/transform
     kernels), scattered back into the padded recon planes.
 
-Integer-only math: CPU == TPU bit-for-bit. Decisions mirror the host
+Integer-only math: every backend gives the same bits. Decisions mirror the host
 md_low path's cost model; the coded state is decode-exact by
 construction (same residual/recon kernels as the decoder).
 """

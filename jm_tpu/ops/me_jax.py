@@ -1,6 +1,6 @@
 """Device-side (jnp/XLA) motion estimation and encode compute step.
 
-The TPU twin of encoder/me.py: full-search SAD over all MBs evaluated as
+The device twin of encoder/me.py: full-search SAD over all MBs evaluated as
 one batched tensor program (reference loops candidates serially:
 lencod/src/me_fullsearch.c). Patch extraction maps the (2*SR+1)^2 candidate
 sweep onto dense tensor ops; the residual path reuses the bit-exact integer
@@ -84,13 +84,13 @@ def regions_grid(ref_pad: jnp.ndarray, mb_w: int, mb_h: int,
 
 def ssd_full_search(orig_mbs: jnp.ndarray, regions: jnp.ndarray,
                     sr: int) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Batched 16x16 full-search with the SSE metric, on the MXU.
+    """Batched 16x16 full-search with the SSE metric, as convolutions.
 
     SSD(dy,dx) = sum(r^2) - 2*sum(r*o) + sum(o^2): the cross term is a
     per-example correlation — exactly XLA's filter-gradient convolution
     pattern (batch_group_count = N) — and the window energy term is a
     plain conv with a ones filter, so the whole (2*sr+1)^2 sweep runs as
-    two MXU convolutions instead of a VPU abs-diff reduction. All sums
+    two convolutions instead of an abs-diff reduction. All sums
     stay below 2^24 so f32 accumulation is exact; final combine in int32.
 
     SSE is a reference-supported ME distortion (lencod MEDistortionFPel=2
@@ -103,7 +103,7 @@ def ssd_full_search(orig_mbs: jnp.ndarray, regions: jnp.ndarray,
     o = orig_mbs[:, None].astype(jnp.float32)          # (N, 1, 16, 16)
     dn = lax.conv_dimension_numbers(r.shape, o.shape,
                                     ("NCHW", "OIHW", "NCHW"))
-    # MXU bf16 single-pass is EXACT here: every operand is an integer
+    # bf16/TF32 single-pass is EXACT here: every operand is an integer
     # <= 255 (8-bit, bf16-representable), products are <= 16 bits (f32-
     # exact), and the f32 accumulator stays below 2^24.
     cross = lax.conv_general_dilated(

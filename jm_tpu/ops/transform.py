@@ -2,11 +2,11 @@
 
 All functions take int32 arrays whose trailing two dims are the block
 (…, 4, 4) / (…, 2, 2) / (…, 8, 8) and vectorize over any leading batch
-shape — the TPU-native replacement for the reference's per-block butterflies
+shape — the batched replacement for the reference's per-block butterflies
 (lcommon/src/transform.c: forward4x4:20, inverse4x4:70, hadamard4x4:121,
 hadamard2x2:xx, forward8x8:353, inverse8x8:450). Math follows the spec
 (ISO/IEC 14496-10 sections 8.5.10-8.5.12); integer ops only, so results are
-identical on CPU and TPU.
+identical on every backend.
 
 Convention: "rows" are the last-but-one axis (vertical index j), "cols" the
 last axis (horizontal index i), matching the spec's d[j][i].

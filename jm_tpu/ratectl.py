@@ -17,7 +17,7 @@ Behavioral parity with lencod/src/rc_quadratic.c / ratectl.c:
   - QP<->Qstep maps                             (ratectl.c QP2Qstep/Qstep2QP)
 
 The controller is host-side (QP decisions are scalar control flow); the
-TPU compute path is unaffected.
+device compute path is unaffected.
 """
 
 from __future__ import annotations

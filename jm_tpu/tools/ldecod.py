@@ -125,4 +125,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from ..runtime import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -2,7 +2,7 @@
 
 Mirrors the reference driver loop (lencod/src/lencod.c:355 encode_sequence,
 image.c:1398 ReportFirstframe/ReportI/ReportP per-frame lines, report.c:246
-report() summary) over the TPU encoder. Accepts reference `.cfg` files
+report() summary) over the jm_tpu encoder. Accepts reference `.cfg` files
 unchanged (unsupported params are ignored with a notice; unsupported
 *features* raise).
 """
@@ -261,4 +261,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from ..runtime import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -18,8 +18,7 @@ decode does not map 1:1 to bit reads).
 
 `diff_traces` aligns two traces — ours vs ours across versions, or ours
 vs a JM trace_dec.txt — on bit position/value and reports the first
-divergence: the entropy-debug workflow the round-1 bring-up used and did
-not commit (VERDICT round 1, missing #10).
+divergence: the entropy-debug workflow for bitstream mismatches.
 
 CLI:
     python -m jm_tpu.tools.trace stream.264 > trace_ours.txt

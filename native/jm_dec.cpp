@@ -4,7 +4,7 @@
  * the one stage of the two-phase decoder that cannot be a batched
  * tensor program — so it runs natively, filling the same picture-wide
  * SoA arrays the Python MBParser fills (jm_tpu/decoder/mb_parse.py);
- * phase 2 (batched recon) then runs on the TPU.
+ * phase 2 (batched recon) then runs on the device.
  *
  * Capability parity with ldecod/src/mb_read.c
  * (read_one_macroblock_{i,p}_slice_cavlc), read_comp_cavlc.c

@@ -3,7 +3,7 @@
  *
  * These are the two host-side stages of the device encode pipeline that
  * are bit-serial / strictly MB-ordered and therefore run natively (the
- * TPU handles all batched tensor math in ops/enc_jax.py):
+ * device handles all batched tensor math in ops/enc_jax.py):
  *
  *   - cavlc_slice_data: serializes one slice's decided macroblocks from
  *     the SoA PictureData arrays (parity: lencod/src/macroblock.c

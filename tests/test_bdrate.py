@@ -1,5 +1,5 @@
 """BD-rate guardrail: encoder quality as a tested number (SURVEY §6
-"PSNR >= JM at equal bitrate" target; VERDICT r1 item 2).
+"PSNR >= JM at equal bitrate" target).
 
 The JM anchor points are recorded from real .refbuild lencod runs
 (encoder_baseline.cfg, foreman QCIF, 3 frames, QP 24/28/32/36); they are

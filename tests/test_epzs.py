@@ -49,7 +49,7 @@ def test_epzs_quality_parity_and_fewer_evals(clip):
     dec_ep = H264Decoder().decode_annexb(s_ep)
     p_fs = np.mean([_psnr(clip[i][0], dec_fs[i].Y) for i in range(len(clip))])
     p_ep = np.mean([_psnr(clip[i][0], dec_ep[i].Y) for i in range(len(clip))])
-    # VERDICT round-1 bar: within 0.05 dB of full search
+    # quality bar: within 0.05 dB of full search
     assert p_ep >= p_fs - 0.05
     assert len(s_ep) <= len(s_fs) * 1.05
 
